@@ -4,9 +4,9 @@
  * with no Python on the host side.
  *
  * Run:
- *   PYTHONPATH=/root/repo:/opt/venv/lib/python3.12/site-packages \
- *   ISLE_CAPI_BOOTSTRAP='import jax; jax.config.update("jax_platforms","cpu")' \
- *   ./capi_smoke ./libisle_trainer.so
+ *   make -C native
+ *   PYTHONPATH=<checkout>:<site-packages> JAX_PLATFORMS=cpu \
+ *   ./native/capi_smoke ./native/libisle_trainer.so
  */
 #include <dlfcn.h>
 #include <math.h>

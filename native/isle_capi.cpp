@@ -1,4 +1,4 @@
-// C ABI for embedding the isle-tpu trainer in a non-Python host.
+// C ABI for embedding the isle-jax trainer in a non-Python host.
 //
 // Plays the role of the reference's shared-library export layer
 // (reference drivers/trainer_export.cpp:31-99): a flat extern "C"
@@ -6,7 +6,7 @@
 // GetBasicModel / GetNumEdgeTopics / GetEdgeModel / DestroyTrainer —
 // that a managed host (the reference's TLC/ML.NET use case) can dlopen.
 // Here the implementation embeds CPython and forwards to the Python
-// handle API (isle_tpu/capi.py), which drives the TPU pipeline.
+// handle API (isle_jax/capi.py), which drives the training pipeline.
 //
 // Usage contract (mirrors the reference header comments):
 //   1. CreateTrainer(), feedData()*, finalizeData(), Train()
@@ -17,11 +17,12 @@
 // the reference feed path expects (src/trainer.cpp:214-228).
 //
 // Environment knobs for the host process:
-//   PYTHONPATH            must include the isle_tpu checkout and its
+//   PYTHONPATH            must include the isle_jax checkout and its
 //                         site-packages (embedded CPython honors it).
 //   ISLE_CAPI_BOOTSTRAP   optional Python snippet executed before the
-//                         first import — e.g. to pin the CPU backend:
-//                         'import jax; jax.config.update("jax_platforms","cpu")'
+//                         first import (e.g. jax.config settings).
+//   JAX_PLATFORMS         honoured by the embedded JAX as documented
+//                         (e.g. cpu to run without an accelerator).
 //   ISLE_CAPI_EDGE_TOPICS optional int: train this many edge topics.
 //
 // Build: make -C native libisle_trainer.so   (links libpython3.12)
@@ -34,7 +35,7 @@
 
 namespace {
 
-PyObject* g_capi = nullptr;  // isle_tpu.capi module
+PyObject* g_capi = nullptr;  // isle_jax.capi module
 
 // One-time interpreter + module setup. Returns the capi module (borrowed
 // global) or nullptr on failure. Releases the GIL after init; every API
@@ -49,11 +50,11 @@ PyObject* ensure_capi() {
         fprintf(stderr, "isle_capi: ISLE_CAPI_BOOTSTRAP failed\n");
       }
     }
-    g_capi = PyImport_ImportModule("isle_tpu.capi");
+    g_capi = PyImport_ImportModule("isle_jax.capi");
     if (!g_capi) {
       PyErr_Print();
       fprintf(stderr,
-              "isle_capi: cannot import isle_tpu.capi (is PYTHONPATH "
+              "isle_capi: cannot import isle_jax.capi (is PYTHONPATH "
               "set to the checkout + site-packages?)\n");
     }
     // Release the GIL so any host thread can call in via PyGILState.
@@ -61,7 +62,7 @@ PyObject* ensure_capi() {
     return g_capi;
   }
   PyGILState_STATE s = PyGILState_Ensure();
-  g_capi = PyImport_ImportModule("isle_tpu.capi");
+  g_capi = PyImport_ImportModule("isle_jax.capi");
   if (!g_capi) PyErr_Print();
   PyGILState_Release(s);
   return g_capi;

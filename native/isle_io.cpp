@@ -1,11 +1,11 @@
-// Native I/O for isle-tpu: memory-mapped TDF parsing and buffered model
+// Native I/O for isle-jax: memory-mapped TDF parsing and buffered model
 // writing. Plays the role of the reference's native I/O layer (mmap
 // char-parser and buffered mmap writer with hand-rolled formatters,
-// reference include/utils.h:96-487) for the TPU rebuild: the host side of
+// reference include/utils.h:96-487) for the JAX rebuild: the host side of
 // the pipeline is single-core here, so parse speed directly gates
 // end-to-end wall-clock.
 //
-// Exposed via a C ABI consumed from Python with ctypes (isle_tpu/native.py).
+// Exposed via a C ABI consumed from Python with ctypes (isle_jax/native.py).
 //
 // Build: make -C native   (produces libisle_io.so)
 

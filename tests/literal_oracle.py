@@ -239,7 +239,7 @@ def mwu_literal(
 
 def elkans_literal(dense, centers, max_reps):
     """Sequential doc-level Elkan's k-means on a dense (V, D) matrix:
-    per-iteration assignment sequence oracle for isle_tpu.elkans.run_elkans
+    per-iteration assignment sequence oracle for isle_jax.elkans.run_elkans
     (same bound maintenance and doc-level filter ub > s[a] AND
     ub > min_{c != a} lb; reference src/sparseMatrix.cpp:2242-2492 gathers
     the same flagged docs into a mini-CSC). Returns the list of assignment

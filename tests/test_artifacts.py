@@ -8,9 +8,9 @@ import os
 import numpy as np
 import pytest
 
-from isle_tpu.config import HyperParams, TrainConfig
-from isle_tpu.corpus import Corpus
-from isle_tpu.trainer import Trainer
+from isle_jax.config import HyperParams, TrainConfig
+from isle_jax.corpus import Corpus
+from isle_jax.trainer import Trainer
 
 
 @pytest.fixture(scope="module")
@@ -115,7 +115,7 @@ def test_top_two_topics_per_doc(trained):
 
 def test_avg_model_files(trained):
     tr, corpus = trained
-    from isle_tpu.io_text import load_dense_model
+    from isle_jax.io_text import load_dense_model
 
     k = tr.config.num_topics
     m = load_dense_model(

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from isle_tpu.catchwords import catchword_topic_map, find_catchwords, rth_highest
-from isle_tpu.sparse import DocSparse
+from isle_jax.catchwords import catchword_topic_map, find_catchwords, rth_highest
+from isle_jax.sparse import DocSparse
 from literal_oracle import find_catchwords_literal, rth_highest_literal
 
 pytestmark = pytest.mark.quick  # <60s smoke tier

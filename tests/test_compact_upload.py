@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from isle_tpu.corpus import Corpus
-from isle_tpu.sparse import DocSparse
+from isle_jax.corpus import Corpus
+from isle_jax.sparse import DocSparse
 
 pytestmark = pytest.mark.quick  # <60s smoke tier
 
@@ -53,7 +53,7 @@ def test_word_delta_codec_with_exceptions():
     the exception list), empty docs, and a doc starting at a big word id."""
     import jax.numpy as jnp
 
-    from isle_tpu.sparse import (
+    from isle_jax.sparse import (
         _pad_exceptions,
         decode_word_deltas,
         encode_word_deltas,
@@ -84,7 +84,7 @@ def test_word_delta_codec_wraparound():
     differences must still decode exactly (two's complement)."""
     import jax.numpy as jnp
 
-    from isle_tpu.sparse import (
+    from isle_jax.sparse import (
         _pad_exceptions,
         decode_word_deltas,
         encode_word_deltas,

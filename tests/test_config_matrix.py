@@ -9,9 +9,9 @@ path silently ran block_ks under eigensolver='dense').
 import numpy as np
 import pytest
 
-from isle_tpu.config import HyperParams, TpuConfig, TrainConfig
-from isle_tpu.streaming import StreamedTrainer
-from isle_tpu.trainer import Trainer
+from isle_jax.config import HyperParams, DeviceConfig, TrainConfig
+from isle_jax.streaming import StreamedTrainer
+from isle_jax.trainer import Trainer
 from test_end_to_end import planted_corpus
 
 # Smallest shape that exercises every combo's code path (this matrix
@@ -45,8 +45,8 @@ def test_config_combo(tdf_path, tmp_path, mode, eigensolver, kmeans):
         kmeans_algo_for_sparse=kmeans,
         block_ks_block_size=8,
     )
-    tpu = TpuConfig(mesh_shape=(4,)) if mode == "sharded" else TpuConfig()
-    cfg = TrainConfig(num_topics=K, seed=0, hyper=hp, tpu=tpu)
+    dev = DeviceConfig(mesh_shape=(4,)) if mode == "sharded" else DeviceConfig()
+    cfg = TrainConfig(num_topics=K, seed=0, hyper=hp, device=dev)
     out = str(tmp_path / f"{mode}_{eigensolver}_{kmeans}")
     if mode == "streamed":
         tr = StreamedTrainer(cfg, output_dir=out, chunk_entries=512)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from isle_tpu.corpus import Corpus, EntryFeeder, read_tdf_entries
+from isle_jax.corpus import Corpus, EntryFeeder, read_tdf_entries
 
 pytestmark = pytest.mark.quick  # <60s smoke tier
 

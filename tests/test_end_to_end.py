@@ -7,9 +7,9 @@ import os
 import numpy as np
 import pytest
 
-from isle_tpu.config import HyperParams, InferConfig, TrainConfig
-from isle_tpu.inferencer import Inferencer
-from isle_tpu.trainer import Trainer
+from isle_jax.config import HyperParams, InferConfig, TrainConfig
+from isle_jax.inferencer import Inferencer
+from isle_jax.trainer import Trainer
 
 pytestmark = pytest.mark.quick  # <60s smoke tier
 
@@ -106,7 +106,7 @@ def test_edge_model(trained):
 
 def test_model_files_roundtrip_and_inference(trained):
     tmp, tr, truth, tdf, V, D, k = trained
-    from isle_tpu import io_text
+    from isle_jax import io_text
 
     path = os.path.join(tr.run_dir, "M_hat_catch_sparse")
     assert os.path.exists(path)
@@ -160,7 +160,7 @@ def test_heldout_inference(trained, tmp_path):
     text, ho_truth = planted_corpus(rng, V, 40, k)
     ho = tmp_path / "heldout.tdf"
     ho.write_text(text)
-    from isle_tpu import io_text
+    from isle_jax import io_text
 
     path = os.path.join(tr.run_dir, "M_hat_catch_sparse")
     inf = Inferencer(

@@ -23,9 +23,9 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "golden_tiny.npz")
 
 
 def _train(tmp_dir):
-    from isle_tpu.config import TrainConfig
-    from isle_tpu.corpus import Corpus
-    from isle_tpu.trainer import Trainer
+    from isle_jax.config import TrainConfig
+    from isle_jax.corpus import Corpus
+    from isle_jax.trainer import Trainer
 
     rng = np.random.default_rng(42)
     V, D, k = 400, 250, 5

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from isle_tpu.hybrid import h_b_y, h_bt_x, h_doc_l2sq, h_gram_x, to_hybrid
-from isle_tpu.sparse import DocSparse, b_y, bt_x, doc_l2sq, gram_x
+from isle_jax.hybrid import h_b_y, h_bt_x, h_doc_l2sq, h_gram_x, to_hybrid
+from isle_jax.sparse import DocSparse, b_y, bt_x, doc_l2sq, gram_x
 
 
 def make(rng, V, D, density, zipf=True, chunk=512):
@@ -109,8 +109,8 @@ def test_factored_hybrid_matches_coo(seed, num_head):
 def test_factored_hybrid_to_dense_roundtrip():
     import jax.numpy as jnp
 
-    from isle_tpu.matops import mat_to_dense
-    from isle_tpu.sparse import to_dense
+    from isle_jax.matops import mat_to_dense
+    from isle_jax.sparse import to_dense
 
     rng = np.random.default_rng(7)
     V, D = 40, 30
@@ -127,9 +127,9 @@ def test_fused_builder_matches_unfused():
     import jax
     import jax.numpy as jnp
 
-    from isle_tpu.bmatrix import threshold_and_copy
-    from isle_tpu.hybrid import hybrid_from_thresholds
-    from isle_tpu.matops import mat_to_dense
+    from isle_jax.bmatrix import threshold_and_copy
+    from isle_jax.hybrid import hybrid_from_thresholds
+    from isle_jax.matops import mat_to_dense
 
     rng = np.random.default_rng(11)
     V, D = 70, 90
@@ -157,7 +157,7 @@ def test_fused_builder_matches_unfused():
     np.testing.assert_allclose(
         mat_to_dense(h), mat_to_dense(h_ref), rtol=1e-6, atol=1e-6
     )
-    from isle_tpu.sparse import frobenius_sq
+    from isle_jax.sparse import frobenius_sq
 
     np.testing.assert_allclose(frob, float(frobenius_sq(B_ref)), rtol=1e-4)
 
@@ -181,7 +181,7 @@ def test_blocked_head_scatter_matches_flat():
     (bf16 binary) modes, and must lift num_head above the capped value."""
     import jax.numpy as jnp
 
-    from isle_tpu.matops import mat_to_dense
+    from isle_jax.matops import mat_to_dense
 
     rng = np.random.default_rng(21)
     V, D, num_head = 60, 45, 25
@@ -229,8 +229,8 @@ def test_fused_builder_break_head_cap():
     import jax
     import jax.numpy as jnp
 
-    from isle_tpu.hybrid import hybrid_from_thresholds
-    from isle_tpu.matops import mat_to_dense
+    from isle_jax.hybrid import hybrid_from_thresholds
+    from isle_jax.matops import mat_to_dense
 
     rng = np.random.default_rng(31)
     V, D = 70, 90
@@ -283,8 +283,8 @@ def test_drop_sentinel_zetas_stay_finite():
     neutralizes the sentinel to 0 (round-4 review finding)."""
     import jax.numpy as jnp
 
-    from isle_tpu.hybrid import h_gram_x, hybrid_from_thresholds
-    from isle_tpu.matops import mat_to_dense
+    from isle_jax.hybrid import h_gram_x, hybrid_from_thresholds
+    from isle_jax.matops import mat_to_dense
 
     rng = np.random.default_rng(17)
     V, D = 32, 40
@@ -308,3 +308,20 @@ def test_drop_sentinel_zetas_stay_finite():
     assert (dense[3] == 0).all() and (dense[7] == 0).all()
     X = rng.standard_normal((V, 8)).astype(np.float32)
     assert np.isfinite(np.asarray(h_gram_x(h, X, 256))).all()
+
+
+def test_split_bf16x3_reconstructs_f32():
+    """The head dot's operand split: every piece is exactly representable
+    in bf16 and the pieces sum back to the f32 input to ~2^-24."""
+    import jax.numpy as jnp
+
+    from isle_jax.hybrid import _split_bf16x3
+
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((64, 5)) * 10.0 ** rng.integers(-6, 6, (64, 5))
+         ).astype(np.float32)
+    parts = np.asarray(_split_bf16x3(jnp.asarray(x)).astype(jnp.float32),
+                       np.float64)
+    recon = parts[:, :5] + parts[:, 5:10] + parts[:, 10:]
+    np.testing.assert_allclose(recon, x, rtol=2.0 ** -22, atol=0)
+    assert np.abs(parts[:, 5:10]).max() > 0  # mid piece carries bits

@@ -6,16 +6,16 @@ import os
 import numpy as np
 import pytest
 
-from isle_tpu import io_text, native
-from isle_tpu.corpus import Corpus
-from isle_tpu.diagnostics import (
+from isle_jax import io_text, native
+from isle_jax.corpus import Corpus
+from isle_jax.diagnostics import (
     count_distinct_top_five,
     log_combinatorial,
     topic_coherence,
     topic_diversity,
 )
-from isle_tpu.obs import Logger, OpCounter, Timer
-from isle_tpu.preprocessed import load_preprocessed, save_preprocessed
+from isle_jax.obs import Logger, OpCounter, Timer
+from isle_jax.preprocessed import load_preprocessed, save_preprocessed
 
 pytestmark = pytest.mark.quick  # <60s smoke tier
 
@@ -171,7 +171,7 @@ def test_native_sort_dedup_edge_cases():
 def _loop_coherence(corpus, model, num_words, eps=1e-5):
     """The pre-vectorization per-pair implementation, kept as the oracle
     (reference loop semantics, src/sparseMatrix.cpp:841-1015)."""
-    from isle_tpu.io_text import top_words_per_topic
+    from isle_jax.io_text import top_words_per_topic
 
     V = corpus.vocab_size
     k = model.shape[1]

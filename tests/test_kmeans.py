@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from isle_tpu.kmeans import (
+from isle_jax.kmeans import (
     kmeans_init_on_projected,
     kmeanspp_on_projected,
     run_lloyds_full,
     run_lloyds_projected,
 )
-from isle_tpu.sparse import DocSparse, to_dense
+from isle_jax.sparse import DocSparse, to_dense
 
 
 def clustered_projected(rng, kdim, k, per):
@@ -98,7 +98,7 @@ def test_mcmc_chain_matches_literal_oracle():
     import jax
     import jax.numpy as jnp
 
-    from isle_tpu.kmeans import mcmc_chain_literal
+    from isle_jax.kmeans import mcmc_chain_literal
 
     rng = np.random.default_rng(0)
     S = 257
@@ -129,7 +129,7 @@ def test_kmeansmcmc_usable_at_larger_k():
 
     import jax
 
-    from isle_tpu.kmeans import kmeansmcmc_on_projected
+    from isle_jax.kmeans import kmeansmcmc_on_projected
 
     rng = np.random.default_rng(1)
     P = jnp.asarray(rng.standard_normal((8, 4000)).astype(np.float32))
@@ -151,7 +151,7 @@ def test_kmeanspp_terminates_when_points_exhausted():
     answer."""
     import jax
 
-    from isle_tpu.kmeans import kmeanspp_on_projected
+    from isle_jax.kmeans import kmeanspp_on_projected
 
     P = jnp.asarray(
         np.repeat(np.eye(3, dtype=np.float32), 4, axis=1)

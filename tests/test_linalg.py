@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from isle_tpu.linalg import align_signs, block_ks, dense_topk_eigh
-from isle_tpu.sparse import DocSparse, gram_x, to_dense
+from isle_jax.linalg import align_signs, block_ks, dense_topk_eigh
+from isle_jax.sparse import DocSparse, gram_x, to_dense
 
 
 def spd_op(S):
@@ -89,7 +89,7 @@ def test_restart_path():
 
 
 def test_device_loop_matches_host_loop():
-    from isle_tpu.linalg import block_ks_device
+    from isle_jax.linalg import block_ks_device
 
     rng = np.random.default_rng(3)
     dim = 150
@@ -109,7 +109,7 @@ def test_device_loop_matches_host_loop():
 def test_lanczos_matches_dense_oracle():
     """The second iterative solver (thick-restart Lanczos, the Spectra
     analog src/sparseMatrix.cpp:1161-1192) vs the LAPACK oracle."""
-    from isle_tpu.linalg import lanczos_device
+    from isle_jax.linalg import lanczos_device
 
     rng = np.random.default_rng(2)
     dim = 120
@@ -134,7 +134,7 @@ def test_lanczos_cross_checks_block_ks_on_gram():
     """Mutual cross-check on the pipeline's B B^T operator: the two
     independent solvers must agree to the configured tolerance (the
     reference's BlockKs-vs-Spectra discipline)."""
-    from isle_tpu.linalg import block_ks_device, lanczos_device
+    from isle_jax.linalg import block_ks_device, lanczos_device
 
     rng = np.random.default_rng(8)
     V, D = 150, 500
@@ -159,9 +159,9 @@ def test_trainer_lanczos_eigensolver_option():
     block_ks model."""
     import dataclasses
 
-    from isle_tpu.config import HyperParams, TrainConfig
-    from isle_tpu.corpus import Corpus
-    from isle_tpu.trainer import Trainer
+    from isle_jax.config import HyperParams, TrainConfig
+    from isle_jax.corpus import Corpus
+    from isle_jax.trainer import Trainer
     import tempfile
 
     rng = np.random.default_rng(6)
@@ -229,7 +229,7 @@ def _low_rank_op():
                                          "lanczos"])
 @pytest.mark.parametrize("rank,nev", [(6, 10), (3, 8)])
 def test_rank_deficient_operator(solver_name, rank, nev):
-    from isle_tpu.linalg import block_ks_device, lanczos_device
+    from isle_jax.linalg import block_ks_device, lanczos_device
 
     rng = np.random.default_rng(rank)
     dim = 300
@@ -262,7 +262,7 @@ def test_rank_deficient_operator(solver_name, rank, nev):
 def test_repeated_leading_eigenvalue(solver_name):
     """5-fold degenerate leading eigenvalue (duplicate-doc corpora produce
     exactly this)."""
-    from isle_tpu.linalg import block_ks_device, lanczos_device
+    from isle_jax.linalg import block_ks_device, lanczos_device
 
     rng = np.random.default_rng(42)
     dim, nev = 200, 8
@@ -320,7 +320,7 @@ def test_duplicate_doc_corpus_gram():
 def test_warm_start_block_cuts_op_calls():
     """Restart-warm eigen: seeding with the true eigenvectors converges
     in the first pass with the same spectrum (linalg._init_block)."""
-    from isle_tpu.linalg import block_ks_device
+    from isle_jax.linalg import block_ks_device
 
     rng = np.random.default_rng(5)
     dim, nev = 400, 12

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from isle_tpu.corpus import Corpus
-from isle_tpu.mwu import build_infer_batch, infer_all
+from isle_jax.corpus import Corpus
+from isle_jax.mwu import build_infer_batch, infer_all
 from literal_oracle import mwu_literal
 
 
@@ -197,7 +197,7 @@ def test_compact_delta_exceptions_large_vocab():
     batch = build_infer_batch(corpus, M.sum(axis=1))
     assert batch.counts is not None
     # sanity: the encoder really produced exceptions for this data
-    from isle_tpu.mwu import _encode_row_deltas
+    from isle_jax.mwu import _encode_row_deltas
     _, exc_i, _ = _encode_row_deltas(batch.word_idx, V)
     assert (exc_i < batch.word_idx.size).any()
     w_c, c1, l1, _ = infer_all(M, batch, 15, 10.0)

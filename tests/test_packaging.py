@@ -35,9 +35,9 @@ def test_console_scripts_resolve():
 def test_package_find_matches_tree():
     meta = tomllib.loads((ROOT / "pyproject.toml").read_text())
     include = meta["tool"]["setuptools"]["packages"]["find"]["include"]
-    assert "isle_tpu*" in include
-    # Every package dir under isle_tpu/ must have an __init__.py so
+    assert "isle_jax*" in include
+    # Every package dir under isle_jax/ must have an __init__.py so
     # setuptools' find_packages actually ships it.
-    for d in (ROOT / "isle_tpu").rglob("*"):
+    for d in (ROOT / "isle_jax").rglob("*"):
         if d.is_dir() and d.name != "__pycache__":
             assert (d / "__init__.py").exists(), f"missing __init__.py in {d}"

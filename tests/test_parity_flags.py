@@ -6,10 +6,10 @@ flags (hyperparams.h:14-25, :54), strict eigensolver convergence
 import numpy as np
 import pytest
 
-from isle_tpu.config import HyperParams, InferConfig, TrainConfig
-from isle_tpu.corpus import Corpus
-from isle_tpu.inferencer import Inferencer
-from isle_tpu.trainer import Trainer
+from isle_jax.config import HyperParams, InferConfig, TrainConfig
+from isle_jax.corpus import Corpus
+from isle_jax.inferencer import Inferencer
+from isle_jax.trainer import Trainer
 
 
 def _entries(rng, V, D, k, words_per_doc=24):
@@ -105,7 +105,7 @@ def test_kmeansmcmc_sample_size_plumbed(tmp_path):
     on a spread-out corpus (same key)."""
     import jax
 
-    from isle_tpu.kmeans import kmeans_init_on_projected
+    from isle_jax.kmeans import kmeans_init_on_projected
 
     rng = np.random.default_rng(11)
     P = np.asarray(rng.random((6, 400)), np.float32)
@@ -121,10 +121,10 @@ def test_kmeansmcmc_sample_size_plumbed(tmp_path):
 
 
 def test_eigen_warm_start_trainer(tmp_path):
-    """tpu.eigen_warm_start: a second run in the same output dir seeds the
+    """device.eigen_warm_start: a second run in the same output dir seeds the
     Krylov block from the first run's checkpointed U and reproduces the
     model (same pipeline, same seed; only the start basis differs)."""
-    from isle_tpu.config import TpuConfig
+    from isle_jax.config import DeviceConfig
 
     rng = np.random.default_rng(2)
     V, D, k = 60, 240, 4
@@ -141,7 +141,7 @@ def test_eigen_warm_start_trainer(tmp_path):
     cold = _train(TrainConfig(num_topics=k, seed=1, hyper=hp))
     warm = _train(TrainConfig(
         num_topics=k, seed=1, hyper=hp,
-        tpu=TpuConfig(eigen_warm_start=True),
+        device=DeviceConfig(eigen_warm_start=True),
     ))
     np.testing.assert_allclose(
         np.sort(warm.evalues), np.sort(cold.evalues), rtol=1e-3
@@ -154,17 +154,17 @@ def test_eigen_warm_start_other_paths(tmp_path, variant):
     """eigen_warm_start must be honored off the default in-core path too
     (round-4 review: the flag was silently ignored by _train_sharded and
     the lanczos branch)."""
-    from isle_tpu.config import TpuConfig
+    from isle_jax.config import DeviceConfig
 
     rng = np.random.default_rng(2)
     V, D, k = 60, 240, 4
     d, w, c = _entries(rng, V, D, k)
     if variant == "sharded":
         hp = HyperParams(block_ks_block_size=8)
-        tpu_kw = dict(mesh_shape=(4,))
+        dev_kw = dict(mesh_shape=(4,))
     else:
         hp = HyperParams(eigensolver="lanczos")
-        tpu_kw = {}
+        dev_kw = {}
 
     def _train(cfg):
         tr = Trainer(cfg, output_dir=str(tmp_path), quiet=True)
@@ -174,10 +174,10 @@ def test_eigen_warm_start_other_paths(tmp_path, variant):
         return tr
 
     cold = _train(TrainConfig(num_topics=k, seed=1, hyper=hp,
-                              tpu=TpuConfig(**tpu_kw)))
+                              device=DeviceConfig(**dev_kw)))
     warm = _train(TrainConfig(
         num_topics=k, seed=1, hyper=hp,
-        tpu=TpuConfig(eigen_warm_start=True, **tpu_kw),
+        device=DeviceConfig(eigen_warm_start=True, **dev_kw),
     ))
     np.testing.assert_allclose(
         np.sort(warm.evalues), np.sort(cold.evalues), rtol=1e-3
@@ -191,7 +191,7 @@ def test_drop_flags_e2e_finite_model(tmp_path):
     to reach row_scale=sqrt(zeta) and NaN the dense-head products when
     a dropped word was selected into the head (round-4 review finding;
     neutralized by hybrid.row_scale_from_zetas)."""
-    from isle_tpu.thresholds import compute_thresholds_np
+    from isle_jax.thresholds import compute_thresholds_np
 
     rng = np.random.default_rng(3)
     V0, D, k = 64, 220, 4

@@ -31,8 +31,6 @@ REF_BIN = os.path.join(REPO, "parity", "bin")
 
 def _run_parity(tmp_path, ref_bin: str) -> dict:
     env = dict(os.environ)
-    # Subprocess CLIs compile fresh; share the suite's persistent cache.
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/isle_test_jax_cache")
     out = str(tmp_path / "out")
     p = subprocess.run(
         [sys.executable, RUNNER, "--dataset", "tiny-syn",

@@ -14,9 +14,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from isle_tpu.config import HyperParams, TpuConfig, TrainConfig
-from isle_tpu.corpus import Corpus
-from isle_tpu.trainer import Trainer
+from isle_jax.config import HyperParams, DeviceConfig, TrainConfig
+from isle_jax.corpus import Corpus
+from isle_jax.trainer import Trainer
 
 
 def _synth_corpus(rng, V, D, k, words_per_doc=24):
@@ -66,7 +66,7 @@ def pair(tmp_path_factory):
     )
     single = _train(corpus, base, tmp, "single")
     sharded_cfg = dataclasses.replace(
-        base, tpu=TpuConfig(mesh_shape=(8,))
+        base, device=DeviceConfig(mesh_shape=(8,))
     )
     sharded = _train(corpus, sharded_cfg, tmp, "sharded")
     return single, sharded
@@ -143,7 +143,7 @@ def test_sharded_sampled_training(pair, tmp_path):
     single = _train(corpus, base, tmp_path, "s_single")
     sharded = _train(
         corpus,
-        dataclasses.replace(base, tpu=TpuConfig(mesh_shape=(8,))),
+        dataclasses.replace(base, device=DeviceConfig(mesh_shape=(8,))),
         tmp_path,
         "s_sharded",
     )
@@ -160,7 +160,7 @@ def test_sharded_resume(pair, tmp_path):
     corpus = _synth_corpus(rng, V, D, k)
     cfg = TrainConfig(
         num_topics=k, seed=2, hyper=HyperParams(block_ks_block_size=8),
-        tpu=TpuConfig(mesh_shape=(8,)),
+        device=DeviceConfig(mesh_shape=(8,)),
     )
     tr = _train(corpus, cfg, tmp_path, "resume")
     tr2 = Trainer(cfg, output_dir=str(tmp_path / "resume"), quiet=True)
@@ -176,8 +176,8 @@ def test_sharded_mwu_inference_matches(pair):
     (drivers/ISLEInfer.cpp:64-117 doc-parallelism as GSPMD row sharding)."""
     import dataclasses as dc
 
-    from isle_tpu.mwu import build_infer_batch, infer_all
-    from isle_tpu.sharding import make_mesh
+    from isle_jax.mwu import build_infer_batch, infer_all
+    from isle_jax.sharding import make_mesh
 
     single, _ = pair
     corpus = single.corpus
@@ -198,10 +198,10 @@ def test_sharded_mwu_compact_upload_matches(pair, monkeypatch):
     """The u16 compact upload must survive the mesh path (round-2 gap:
     mesh inference silently fell back to the fat f32 upload). The fat
     kernel is poisoned so any fallback fails the test."""
-    from isle_tpu import mwu as mwu_mod
-    from isle_tpu.corpus import Corpus
-    from isle_tpu.mwu import build_infer_batch, infer_all
-    from isle_tpu.sharding import make_mesh
+    from isle_jax import mwu as mwu_mod
+    from isle_jax.corpus import Corpus
+    from isle_jax.mwu import build_infer_batch, infer_all
+    from isle_jax.sharding import make_mesh
 
     single, _ = pair
     corpus = single.corpus
@@ -240,7 +240,7 @@ def test_sharded_elkans_trainer_matches_single(tmp_path):
     single = _train(corpus, base, tmp_path, "elk_single")
     sharded = _train(
         corpus,
-        dataclasses.replace(base, tpu=TpuConfig(mesh_shape=(8,))),
+        dataclasses.replace(base, device=DeviceConfig(mesh_shape=(8,))),
         tmp_path,
         "elk_sharded",
     )

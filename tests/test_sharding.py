@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from isle_tpu.sharding import (
+from isle_jax.sharding import (
     from_doc_sparse,
     make_mesh,
     shard_doc_sparse,
@@ -15,7 +15,7 @@ from isle_tpu.sharding import (
     sharded_gram_x,
     sharded_train_step,
 )
-from isle_tpu.sparse import DocSparse, b_y, bt_x, gram_x
+from isle_jax.sparse import DocSparse, b_y, bt_x, gram_x
 
 
 @pytest.fixture(scope="module")
@@ -84,9 +84,9 @@ def test_sharded_train_step_runs(problem):
 
 
 def test_sharded_thresholds_matches_single(problem):
-    from isle_tpu.config import HyperParams
-    from isle_tpu.sharding import shard_by_word, sharded_thresholds
-    from isle_tpu.thresholds import compute_thresholds_np
+    from isle_jax.config import HyperParams
+    from isle_jax.sharding import shard_by_word, sharded_thresholds
+    from isle_jax.thresholds import compute_thresholds_np
 
     sp, ssp, mesh, (w, d, v, V, D) = problem
     hp = HyperParams()
@@ -104,9 +104,9 @@ def test_sharded_thresholds_drop_flags(problem):
     sharding._sm cache key: an under-keyed cached program would silently
     reuse the unflagged constants (the flags are baked into the compiled
     stage)."""
-    from isle_tpu.config import HyperParams
-    from isle_tpu.sharding import shard_by_word, sharded_thresholds
-    from isle_tpu.thresholds import compute_thresholds_np
+    from isle_jax.config import HyperParams
+    from isle_jax.sharding import shard_by_word, sharded_thresholds
+    from isle_jax.thresholds import compute_thresholds_np
 
     sp, ssp, mesh, (w, d, v, V, D) = problem
     avg, nz, k = 6.0, D, 3
@@ -124,8 +124,8 @@ def test_sharded_thresholds_drop_flags(problem):
 
 
 def test_sharded_rth_matches_single(problem):
-    from isle_tpu.catchwords import rth_highest
-    from isle_tpu.sharding import shard_by_word, sharded_rth_highest
+    from isle_jax.catchwords import rth_highest
+    from isle_jax.sharding import shard_by_word, sharded_rth_highest
 
     sp, ssp, mesh, (w, d, v, V, D) = problem
     rng = np.random.default_rng(7)
@@ -144,7 +144,7 @@ def test_sharded_rth_matches_single(problem):
 def hybrid_problem():
     """Row-constant values (the factored-layout premise: every nonzero of
     row w equals scale[w], as in the thresholded B)."""
-    from isle_tpu.sharding import shard_hybrid
+    from isle_jax.sharding import shard_hybrid
 
     rng = np.random.default_rng(7)
     V, D = 60, 100
@@ -167,7 +167,7 @@ def hybrid_problem():
 
 
 def test_sharded_hybrid_bt_x_matches(hybrid_problem):
-    from isle_tpu.sharding import sharded_h_bt_x
+    from isle_jax.sharding import sharded_h_bt_x
 
     sp, ssp, h, mesh, (V, D) = hybrid_problem
     rng = np.random.default_rng(11)
@@ -178,7 +178,7 @@ def test_sharded_hybrid_bt_x_matches(hybrid_problem):
 
 
 def test_sharded_hybrid_b_y_matches(hybrid_problem):
-    from isle_tpu.sharding import sharded_h_b_y
+    from isle_jax.sharding import sharded_h_b_y
 
     sp, ssp, h, mesh, (V, D) = hybrid_problem
     rng = np.random.default_rng(12)
@@ -193,7 +193,7 @@ def test_sharded_hybrid_b_y_matches(hybrid_problem):
 
 
 def test_sharded_hybrid_gram_matches(hybrid_problem):
-    from isle_tpu.sharding import sharded_h_gram_x
+    from isle_jax.sharding import sharded_h_gram_x
 
     sp, ssp, h, mesh, (V, D) = hybrid_problem
     rng = np.random.default_rng(13)
@@ -204,7 +204,7 @@ def test_sharded_hybrid_gram_matches(hybrid_problem):
 
 
 def test_sharded_hybrid_lloyds_matches_coo(hybrid_problem):
-    from isle_tpu.sharding import sharded_run_lloyds_full
+    from isle_jax.sharding import sharded_run_lloyds_full
 
     sp, ssp, h, mesh, (V, D) = hybrid_problem
     rng = np.random.default_rng(21)
@@ -220,8 +220,8 @@ def test_sharded_hybrid_lloyds_matches_coo(hybrid_problem):
 def test_sharded_elkans_matches_single(problem):
     """sharded_run_elkans reproduces the single-device Elkan's fixpoint
     (same seed centers -> same assignment and centers)."""
-    from isle_tpu.elkans import run_elkans
-    from isle_tpu.elkans_sharded import sharded_run_elkans
+    from isle_jax.elkans import run_elkans
+    from isle_jax.elkans_sharded import sharded_run_elkans
 
     sp, ssp, mesh, (w, d, v, V, D) = problem
     rng = np.random.default_rng(31)
@@ -238,8 +238,8 @@ def test_sharded_elkans_matches_single(problem):
 def test_sharded_elkans_matches_lloyds_fixpoint(problem):
     """Same fixpoint as the sharded Lloyd's (up to exact-tie ordering,
     which random centers make measure-zero)."""
-    from isle_tpu.elkans_sharded import sharded_run_elkans
-    from isle_tpu.sharding import sharded_run_lloyds_full
+    from isle_jax.elkans_sharded import sharded_run_elkans
+    from isle_jax.sharding import sharded_run_lloyds_full
 
     sp, ssp, mesh, (w, d, v, V, D) = problem
     rng = np.random.default_rng(33)
@@ -256,7 +256,7 @@ def test_sharded_elkans_matches_lloyds_fixpoint(problem):
 def test_sharded_elkans_hybrid_matches_coo(hybrid_problem):
     """Elkan's on the factored-hybrid sharded layout (dense-head gather
     in the mini pass) agrees with the COO layout."""
-    from isle_tpu.elkans_sharded import sharded_run_elkans
+    from isle_jax.elkans_sharded import sharded_run_elkans
 
     sp, ssp, h, mesh, (V, D) = hybrid_problem
     rng = np.random.default_rng(35)
@@ -274,8 +274,8 @@ def test_mat_to_dense_sharded_layouts(problem, hybrid_problem):
     """Host densification of the sharded layouts (the dense-oracle
     eigensolver's input under mesh training) matches the single-device
     dense form, in global compact doc order."""
-    from isle_tpu.matops import mat_to_dense
-    from isle_tpu.sparse import to_dense
+    from isle_jax.matops import mat_to_dense
+    from isle_jax.sparse import to_dense
 
     sp, ssp, mesh, (w, d, v, V, D) = problem
     np.testing.assert_allclose(

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from isle_tpu.bmatrix import threshold_and_copy, threshold_and_copy_np
-from isle_tpu.corpus import Corpus
-from isle_tpu.sparse import DocSparse, b_y, bt_x, doc_l2sq, gram_x, to_dense
+from isle_jax.bmatrix import threshold_and_copy, threshold_and_copy_np
+from isle_jax.corpus import Corpus
+from isle_jax.sparse import DocSparse, b_y, bt_x, doc_l2sq, gram_x, to_dense
 
 
 def random_sparse(rng, V, D, density=0.1, chunk=256):

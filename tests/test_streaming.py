@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from isle_tpu.config import HyperParams, TrainConfig
-from isle_tpu.streaming import (
+from isle_jax.config import HyperParams, TrainConfig
+from isle_jax.streaming import (
     StreamedTrainer,
     streamed_build_b,
     streamed_thresholds,
 )
-from isle_tpu.thresholds import compute_thresholds_np
-from isle_tpu.trainer import Trainer
+from isle_jax.thresholds import compute_thresholds_np
+from isle_jax.trainer import Trainer
 from test_end_to_end import planted_corpus
 
 
@@ -27,7 +27,7 @@ def corpus_pair(tmp_path_factory):
 
 def test_streamed_thresholds_match(corpus_pair):
     tmp, tdf, V, D, k = corpus_pair
-    from isle_tpu.corpus import Corpus
+    from isle_jax.corpus import Corpus
 
     c = Corpus.from_tdf_file(tdf)
     hp = HyperParams()
@@ -43,9 +43,9 @@ def test_streamed_b_matches_incore(corpus_pair):
     tmp, tdf, V, D, k = corpus_pair
     import jax.numpy as jnp
 
-    from isle_tpu.bmatrix import threshold_and_copy
-    from isle_tpu.corpus import Corpus
-    from isle_tpu.sparse import DocSparse, to_dense
+    from isle_jax.bmatrix import threshold_and_copy
+    from isle_jax.corpus import Corpus
+    from isle_jax.sparse import DocSparse, to_dense
 
     c = Corpus.from_tdf_file(tdf)
     hp = HyperParams()
@@ -92,8 +92,8 @@ def test_trainer_preprocessed_ingest(corpus_pair):
     """PREPROCESSED_DATA_LOAD mode: save binary sidecars, train from them;
     results match the text-ingest path (raw counts are absent, so the
     compact upload falls back to direct transfer)."""
-    from isle_tpu.corpus import Corpus
-    from isle_tpu.preprocessed import save_preprocessed
+    from isle_jax.corpus import Corpus
+    from isle_jax.preprocessed import save_preprocessed
 
     tmp, tdf, V, D, k = corpus_pair
     c = Corpus.from_tdf_file(tdf)
@@ -156,7 +156,7 @@ def test_streamed_resume(tmp_path):
     final artifacts, SURVEY.md §5.4)."""
     import os
 
-    from isle_tpu.streaming import StreamedTrainer
+    from isle_jax.streaming import StreamedTrainer
 
     rng = np.random.default_rng(12)
     corpus = _synth(rng, V=60, D=200, k=4) if "_synth" in globals() else None
@@ -175,14 +175,14 @@ def test_streamed_resume(tmp_path):
             docs.append(np.full(len(ws), d))
             words.append(ws)
             counts.append(cs)
-        from isle_tpu.corpus import Corpus
+        from isle_jax.corpus import Corpus
 
         corpus = Corpus.from_entries(
             np.concatenate(docs), np.concatenate(words),
             np.concatenate(counts), vocab_size=V, num_docs=D,
             sort_dedup=True,
         )
-    from isle_tpu.config import HyperParams, TrainConfig
+    from isle_jax.config import HyperParams, TrainConfig
 
     cfg = TrainConfig(
         num_topics=4, seed=3, hyper=HyperParams(block_ks_block_size=8)
@@ -225,8 +225,8 @@ def test_chunk_loader_nibble_exceptions():
     backend (values are avg * count / doc_sum in f32 both ways)."""
     import dataclasses
 
-    from isle_tpu.corpus import Corpus
-    from isle_tpu.streaming import doc_chunks, make_chunk_loader
+    from isle_jax.corpus import Corpus
+    from isle_jax.streaming import doc_chunks, make_chunk_loader
 
     rng = np.random.default_rng(5)
     V, D, nnz = 40, 120, 900
@@ -265,8 +265,8 @@ def test_resident_loader_matches_wire_loaders():
     must fall back to per-pass streaming when over budget."""
     import dataclasses
 
-    from isle_tpu.corpus import Corpus
-    from isle_tpu.streaming import (
+    from isle_jax.corpus import Corpus
+    from isle_jax.streaming import (
         ResidentLoader,
         doc_chunks,
         get_corpus_loader,
@@ -318,7 +318,7 @@ def test_plan_middle_budget():
     """Slab-vs-head policy: keep the resident corpus whenever the middle
     fits beside it (shrinking, then dropping, the dense head), release
     only when even the no-head middle cannot fit."""
-    from isle_tpu.streaming import plan_middle_budget
+    from isle_jax.streaming import plan_middle_budget
 
     GiB = 1 << 30
     # plenty of room: keep slabs, full configured head
@@ -352,8 +352,8 @@ def test_streamed_release_path_matches_keep_path(corpus_pair):
     resident fill."""
     import dataclasses
 
-    from isle_tpu.config import TpuConfig
-    from isle_tpu.streaming import ResidentLoader
+    from isle_jax.config import DeviceConfig
+    from isle_jax.streaming import ResidentLoader
 
     tmp, tdf, V, D, k = corpus_pair
     cfg_keep = TrainConfig(num_topics=k, seed=3)
@@ -365,7 +365,7 @@ def test_streamed_release_path_matches_keep_path(corpus_pair):
     assert t_keep._loader.fill_count == 1  # slabs held end to end
 
     cfg_rel = dataclasses.replace(
-        cfg_keep, tpu=dataclasses.replace(cfg_keep.tpu, hbm_bytes=1 << 20)
+        cfg_keep, device=dataclasses.replace(cfg_keep.device, hbm_bytes=1 << 20)
     )
     t_rel = StreamedTrainer(cfg_rel, output_dir=str(tmp / "rel"),
                             chunk_entries=1024)
@@ -381,7 +381,7 @@ def test_streamed_middle_oom_fallback(corpus_pair, monkeypatch, tmp_path):
     """RESOURCE_EXHAUSTED during the slab-held middle must release the
     slabs and retry at the configured head budget, matching the normal
     run's outputs."""
-    import isle_tpu.hybrid as hybrid_mod
+    import isle_jax.hybrid as hybrid_mod
 
     tmp, tdf, V, D, k = corpus_pair
     cfg = TrainConfig(num_topics=k, seed=3)
@@ -397,7 +397,7 @@ def test_streamed_middle_oom_fallback(corpus_pair, monkeypatch, tmp_path):
     def oom_once(*args, **kwargs):
         calls["n"] += 1
         if calls["n"] == 1:
-            raise RuntimeError("RESOURCE_EXHAUSTED: TPU backend error "
+            raise RuntimeError("RESOURCE_EXHAUSTED: device backend error "
                                "(ResourceExhausted) [simulated]")
         return real(*args, **kwargs)
 
@@ -411,54 +411,3 @@ def test_streamed_middle_oom_fallback(corpus_pair, monkeypatch, tmp_path):
     assert t_oom._loader.fill_count == 2  # released, refilled for finish
     np.testing.assert_array_equal(t_oom.model, t_ref.model)
     np.testing.assert_array_equal(t_oom.cluster_of_doc, t_ref.cluster_of_doc)
-
-
-def test_streamed_pallas_matches_xla(corpus_pair, monkeypatch):
-    """The MXU segment-sum route through the streamed stages (round-5:
-    per-chunk device sort + plan; doc-plan mass; gather+MXU model) must
-    match the XLA-scatter route — thresholds exactly (int32 counts),
-    mass/model to fp32 accumulation-order tolerance. Also exercises the
-    plan-overflow fallback per chunk via a forced None plan."""
-    import jax.numpy as jnp
-
-    from isle_tpu.corpus import Corpus
-    from isle_tpu.streaming import streamed_thresholds, streamed_topic_model
-
-    tmp, tdf, V, D, k = corpus_pair
-    c = Corpus.from_tdf_file(tdf)
-    hp = HyperParams()
-
-    z_x, nnz_x = streamed_thresholds(c, k, hp, chunk_entries=512)
-    z_p, nnz_p = streamed_thresholds(
-        c, k, hp, chunk_entries=512, pallas=True, pallas_chunk=128)
-    np.testing.assert_array_equal(np.asarray(z_p), np.asarray(z_x))
-    assert nnz_p == nnz_x
-
-    rng = np.random.default_rng(5)
-    cw_topic = np.full(V, -1, np.int32)
-    cw_topic[rng.choice(V, size=V // 3, replace=False)] = rng.integers(
-        0, k, V // 3)
-    cluster = rng.integers(-1, k, D).astype(np.int32)
-    m_x, p_x = streamed_topic_model(
-        c, cw_topic, cluster, k, 2, want_top_pairs=True, chunk_entries=512)
-    m_p, p_p = streamed_topic_model(
-        c, cw_topic, cluster, k, 2, want_top_pairs=True, chunk_entries=512,
-        pallas=True, pallas_chunk=128)
-    np.testing.assert_allclose(np.asarray(m_p), np.asarray(m_x),
-                               atol=1e-5, rtol=1e-5)
-    for a, b in zip(p_p, p_x):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    # Forced plan overflow: every chunk takes the in-layout XLA fallback.
-    import isle_tpu.pallas_ops as po
-    monkeypatch.setattr(po, "plan_segments",
-                        lambda *a, **kw: None)
-    z_f, nnz_f = streamed_thresholds(
-        c, k, hp, chunk_entries=512, pallas=True, pallas_chunk=128)
-    np.testing.assert_array_equal(np.asarray(z_f), np.asarray(z_x))
-    assert nnz_f == nnz_x
-    m_f, _ = streamed_topic_model(
-        c, cw_topic, cluster, k, 2, want_top_pairs=False, chunk_entries=512,
-        pallas=True, pallas_chunk=128)
-    np.testing.assert_allclose(np.asarray(m_f), np.asarray(m_x),
-                               atol=1e-5, rtol=1e-5)

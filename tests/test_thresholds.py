@@ -4,8 +4,8 @@ literal restatement of the reference loop on adversarial random data."""
 import numpy as np
 import pytest
 
-from isle_tpu.config import HyperParams
-from isle_tpu.thresholds import compute_thresholds_jax, compute_thresholds_np
+from isle_jax.config import HyperParams
+from isle_jax.thresholds import compute_thresholds_jax, compute_thresholds_np
 from literal_oracle import thresholds_literal
 
 pytestmark = pytest.mark.quick  # <60s smoke tier

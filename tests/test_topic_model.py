@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from isle_tpu.config import HyperParams
-from isle_tpu.sparse import DocSparse
-from isle_tpu.topic_model import (
+from isle_jax.config import HyperParams
+from isle_jax.sparse import DocSparse
+from isle_jax.topic_model import (
     construct_edge_topics_v2,
     construct_topic_model,
     doc_topic_mass,

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from isle_tpu.elkans import run_elkans
-from isle_tpu.kmeans import (
+from isle_jax.elkans import run_elkans
+from isle_jax.kmeans import (
     kmeans_init_on_projected,
     run_lloyds_full,
     run_lloyds_projected,
 )
-from isle_tpu.sparse import DocSparse, to_dense
-from isle_tpu.topic_model import construct_edge_topics_v1
+from isle_jax.sparse import DocSparse, to_dense
+from isle_jax.topic_model import construct_edge_topics_v1
 
 
 def clustered_P(rng, kdim, k, per):
@@ -79,7 +79,7 @@ def test_edge_topics_v1():
 
 
 def test_capi_roundtrip(tmp_path):
-    from isle_tpu import capi
+    from isle_jax import capi
 
     rng = np.random.default_rng(2)
     V, D, k = 40, 120, 3
@@ -144,7 +144,7 @@ def test_elkans_assignment_sequence_matches_oracle():
 def test_elkans_on_hybrid_layout():
     """Elkan's mini-SpMM path must handle the dense-head/sparse-tail
     layout (the trainer passes hybrid B)."""
-    from isle_tpu.hybrid import to_hybrid
+    from isle_jax.hybrid import to_hybrid
 
     rng = np.random.default_rng(5)
     V, D, kc = 40, 120, 4
@@ -176,8 +176,8 @@ class TestImplicitProjection:
 
     def _problem(self, seed, factored):
         import jax.numpy as jnp
-        from isle_tpu.hybrid import to_hybrid
-        from isle_tpu.sparse import DocSparse
+        from isle_jax.hybrid import to_hybrid
+        from isle_jax.sparse import DocSparse
 
         rng = np.random.default_rng(seed)
         V, D, nnz = 90, 70, 800
@@ -200,7 +200,7 @@ class TestImplicitProjection:
 
     @pytest.mark.parametrize("doc_block", [7, 16, 64, 1 << 18])
     def test_coo_matches(self, doc_block):
-        from isle_tpu.matops import mat_bt_x, mat_bt_x_blockwise
+        from isle_jax.matops import mat_bt_x, mat_bt_x_blockwise
 
         sp, _, X = self._problem(3, factored=False)
         ref = np.asarray(mat_bt_x(sp, X, 256))
@@ -211,8 +211,8 @@ class TestImplicitProjection:
     @pytest.mark.parametrize("doc_block", [16, 1 << 18])
     def test_hybrid_matches(self, factored, doc_block):
         import jax.numpy as jnp
-        from isle_tpu.hybrid import to_hybrid
-        from isle_tpu.matops import mat_bt_x, mat_bt_x_blockwise
+        from isle_jax.hybrid import to_hybrid
+        from isle_jax.matops import mat_bt_x, mat_bt_x_blockwise
 
         sp, scale, X = self._problem(5, factored=factored)
         h = to_hybrid(
@@ -230,9 +230,9 @@ class TestImplicitProjection:
         float summation order)."""
         import dataclasses
 
-        from isle_tpu.config import HyperParams, TrainConfig
-        from isle_tpu.corpus import Corpus
-        from isle_tpu.trainer import Trainer
+        from isle_jax.config import HyperParams, TrainConfig
+        from isle_jax.corpus import Corpus
+        from isle_jax.trainer import Trainer
         from test_end_to_end import planted_corpus
 
         rng = np.random.default_rng(31)
@@ -270,8 +270,8 @@ def test_trainer_cross_layout_agreement(tmp_path):
     end-to-end, like the reference's Spectra-vs-BlockKs mutual check)."""
     import dataclasses
 
-    from isle_tpu.config import HyperParams, TpuConfig, TrainConfig
-    from isle_tpu.trainer import Trainer
+    from isle_jax.config import HyperParams, DeviceConfig, TrainConfig
+    from isle_jax.trainer import Trainer
     from test_end_to_end import planted_corpus
 
     rng = np.random.default_rng(33)
@@ -285,7 +285,7 @@ def test_trainer_cross_layout_agreement(tmp_path):
         cfg = TrainConfig(
             num_topics=k, seed=0,
             hyper=HyperParams(block_ks_block_size=8),
-            tpu=TpuConfig(dense_head_bytes=head_bytes),
+            device=DeviceConfig(dense_head_bytes=head_bytes),
         )
         tr = Trainer(
             cfg, output_dir=str(tmp_path / f"h{head_bytes}"), quiet=True
@@ -302,12 +302,12 @@ def test_trainer_cross_layout_agreement(tmp_path):
 
 
 def test_trainer_break_head_cap_wiring(tmp_path):
-    """TpuConfig.break_head_cap threads through the in-core trainer: at a
+    """DeviceConfig.break_head_cap threads through the in-core trainer: at a
     shape where the int32 cap does not bind, the flag is a bit-exact
     no-op (same num_head => same model/clusters/spectrum); the blocked-
     scatter equality itself is pinned at unit level in test_hybrid."""
-    from isle_tpu.config import HyperParams, TpuConfig, TrainConfig
-    from isle_tpu.trainer import Trainer
+    from isle_jax.config import HyperParams, DeviceConfig, TrainConfig
+    from isle_jax.trainer import Trainer
     from test_end_to_end import planted_corpus
 
     rng = np.random.default_rng(43)
@@ -321,7 +321,7 @@ def test_trainer_break_head_cap_wiring(tmp_path):
         cfg = TrainConfig(
             num_topics=k, seed=0,
             hyper=HyperParams(block_ks_block_size=8),
-            tpu=TpuConfig(break_head_cap=flag),
+            device=DeviceConfig(break_head_cap=flag),
         )
         tr = Trainer(
             cfg, output_dir=str(tmp_path / f"cb{int(flag)}"), quiet=True
